@@ -8,10 +8,13 @@ Phases, each of which fails the run (non-zero exit, no result line) when it
 fails:
 
   1. build: both CUDA kernels (``src/repro_torch/csrc/*.cu``) are compiled
-     with nvcc for sm_90a, in parallel.
+     with nvcc for sm_90a, in parallel; ``cuobjdump -sass`` of each library
+     must show tensor-core instructions (HMMA on TF32, or HGMMA).
   2. kernel against plain version: each kernel is held against its plain
      PyTorch version on the same inputs, at the main path's shapes and at
-     ragged ones, with float32 and bfloat16 inputs.
+     ragged ones (rows not 16-byte aligned, one past a tile, depth below
+     one MMA step), with float32 and bfloat16 inputs; a second launch on
+     the same inputs must repeat the first bit for bit.
   3. example gate: examples/knn_search.py's data and sizes (N=2048,
      D=16384, Q=16, p=4, k=256, block_d=4096) through the port; the
      margin-MLE cluster recall@1 must be >= 0.9, as the example asserts.
@@ -24,7 +27,9 @@ fails:
   5. kernel route against plain route on a 65,536-row slice of the corpus.
   6. timings of each kernel, its plain version and the nearest PyTorch
      library call at the main path's shapes, beside the least time the card
-     could take (bound), and a profile of the ingest and query windows.
+     could take for the kernel's route (bound: three TF32 tensor-core
+     products per product, or the bytes) and the fp32 CUDA-core bound, and
+     a profile of the ingest and query windows.
 
 The line before the last is the card's name and power limit from
 nvidia-smi; the last line is the JSON result.  Needs one CUDA card; exits
@@ -35,6 +40,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -46,8 +52,13 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
-PEAK_FP32_FLOPS = 67e12  # CUDA cores; both kernels stay in IEEE fp32
+PEAK_FP32_FLOPS = 67e12  # CUDA cores
+PEAK_TF32_FLOPS = 495e12  # tensor cores
 PEAK_BYTES = 3.35e12
+# both kernels take each float32 product as three TF32 products
+# (src/repro_torch/csrc/tf32x3.cuh)
+SCHEME = "tf32x3_mma_sync"
+TF32_PRODUCTS = 3
 
 SEED = 0
 D = 16_384
@@ -93,9 +104,44 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def bound_ms(flops: float, nbytes: float):
-    ops, mem = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound_ms(flops: float, nbytes: float, peak_flops: float = PEAK_TF32_FLOPS,
+             products: int = TF32_PRODUCTS):
+    """(ms, "operations" | "bytes"): the least time for ``flops`` of float32
+    work done as ``products`` products each at ``peak_flops``, or for
+    ``nbytes`` at the memory rate, whichever is larger."""
+    ops = products * flops / peak_flops * 1e3
+    mem = nbytes / PEAK_BYTES * 1e3
     return (ops, "operations") if ops >= mem else (mem, "bytes")
+
+
+def fp32_bound_ms(flops: float, nbytes: float) -> float:
+    """The same bound for IEEE fp32 on the CUDA cores."""
+    return bound_ms(flops, nbytes, PEAK_FP32_FLOPS, 1)[0]
+
+
+# the main path's kernel shapes, as timed here and by tools/torch_kernel_ab.py
+STRIP = 2048  # rows of queries and of corpus in one pairwise_lp strip
+POWER_PROJECT_ITERS = 20
+PAIRWISE_LP_ITERS = 100
+
+
+def power_project_inputs(torch, dev, gen):
+    """X (BATCH, D) in [0, 1), R (D, K) normal and the powers 1..P-1: one
+    sketch call of the main path."""
+    X = torch.rand((BATCH, D), generator=gen, device=dev)
+    R = torch.randn((D, K), generator=gen, device=dev)
+    return X, R, tuple(range(1, P))
+
+
+def pairwise_lp_inputs(torch, dev, gen):
+    """A, B (STRIP, (P-1) K) normal and margins na, nb in [0, (P-1) K): one
+    query strip of the main path."""
+    depth = (P - 1) * K
+    A = torch.randn((STRIP, depth), generator=gen, device=dev)
+    B = torch.randn((STRIP, depth), generator=gen, device=dev)
+    na = torch.rand(STRIP, generator=gen, device=dev) * depth
+    nb = torch.rand(STRIP, generator=gen, device=dev) * depth
+    return A, B, na, nb
 
 
 class Smoke:
@@ -125,16 +171,32 @@ class Smoke:
             f"(in parallel, {time.perf_counter() - t0:.1f} s wall) {self.tag()}")
         for name in build.KERNELS:
             for line in build.ptxas_report(name).splitlines():
-                if "registers" in line or "spill" in line:
+                if "registers" in line or "spill" in line or "Compiling" in line:
                     log(f"  ptxas {name}: {line.strip()}")
             build.load(name)
+            sass = build.sass(name)
+            if sass is None:
+                log(f"sass {name}: the toolkit has no cuobjdump; tensor-core "
+                    f"instructions not checked")
+                continue
+            ops = re.findall(r"\bHG?MMA\.[A-Za-z0-9.]+", sass)
+            ops = [op for op in ops if op.startswith("HGMMA") or "TF32" in op]
+            log(f"sass {name}: {len(ops)} tensor-core instructions "
+                f"({', '.join(sorted(set(ops)))})")
+            if not ops:
+                raise AssertionError(f"{name}: cuobjdump -sass shows no HMMA.TF32 "
+                                     f"or HGMMA instruction")
 
     # 2 ------------------------------------------------------------------
-    def _record(self, name: str, what: str, got, want, scale: float, tol_rel: float):
+    def _record(self, name: str, what: str, got, again, want, scale: float,
+                tol_rel: float):
         torch = self.torch
         if got.shape != want.shape or not bool(torch.isfinite(got).all()):
             raise AssertionError(f"{name} {what}: shape {tuple(got.shape)} vs "
                                  f"{tuple(want.shape)} or non-finite output")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name} {what}: a second launch on the same inputs "
+                                 f"differs from the first")
         err = float((got - want).abs().max())
         tol = tol_rel * scale
         self.err[name] = max(self.err[name], err)
@@ -156,17 +218,26 @@ class Smoke:
             (1000, 5000, 200, (1, 2, 3), torch.float32),  # ragged n, D, k
             (1000, 5000, 200, (1, 2, 3), torch.bfloat16),
             (37, 129, 17, (1, 2, 3, 4, 5, 6, 7), torch.float32),  # p = 8
+            # rows of X not 16-byte aligned (D % 4, D % 8), n and k one past a
+            # tile (64 x 128), depth below one MMA step (8)
+            (65, 5001, 129, (1, 2, 3), torch.float32),
+            (65, 5001, 129, (1, 2, 3), torch.bfloat16),
+            (65, 5004, 132, (3, 1), torch.bfloat16),
+            (1, 3, 5, (1, 2, 3), torch.float32),
+            (1, 3, 5, (1, 2, 3), torch.bfloat16),
         ]
         for n, d, k, powers, dtype in cases:
             X = torch.rand((n, d), generator=gen, device=self.dev).to(dtype)
             R = torch.randn((d, k), generator=gen, device=self.dev)
             got = power_project(X, R, powers)
+            again = power_project(X, R, powers)
             want = power_project_ref(X, R, powers)
-            # float32 rounding of a length-d sum is far below 1e-5 of the
-            # sum of |terms|; a dropped or doubled D-step is far above it
+            # float32 rounding and the kernel's three TF32 products per
+            # product are far below 1e-5 of the sum of |terms| of a length-d
+            # sum; one TF32 product, or a dropped or doubled D-step, is not
             scale = float(power_project_ref(X.float().abs(), R.abs(), powers).max())
             self._record("power_project", f"X ({n}, {d}) {str(dtype)[6:]}, k={k}, "
-                         f"powers {powers}", got, want, scale, 1e-5)
+                         f"powers {powers}", got, again, want, scale, 1e-5)
 
     def compare_pairwise_lp(self):
         torch = self.torch
@@ -180,6 +251,13 @@ class Smoke:
             (1000, 1537, 700, True, torch.float32),   # ragged n, m, K
             (1000, 1537, 700, False, torch.bfloat16),
             (1, 3, 5, True, torch.float32),
+            # rows not 16-byte aligned (K % 4, K % 8), n and m one past a
+            # tile (128), depth below one MMA step (8)
+            (129, 129, 701, True, torch.float32),
+            (129, 129, 701, False, torch.bfloat16),
+            (2049, 2049, 768, True, torch.float32),
+            (2049, 129, 772, False, torch.bfloat16),
+            (1, 3, 5, False, torch.bfloat16),
         ]
         for n, m, k, clip, dtype in cases:
             A = torch.randn((n, k), generator=gen, device=self.dev).to(dtype)
@@ -187,10 +265,11 @@ class Smoke:
             na = torch.rand(n, generator=gen, device=self.dev) * k
             nb = torch.rand(m, generator=gen, device=self.dev) * k
             got = pairwise_lp(A, B, na, nb, clip=clip)
+            again = pairwise_lp(A, B, na, nb, clip=clip)
             want = pairwise_lp_ref(A, B, na, nb, clip=clip)
             scale = float(pairwise_lp_ref(A.float().abs(), B.float().abs(), na, nb).max())
             self._record("pairwise_lp", f"({n}, {m}, K={k}) {str(dtype)[6:]}, clip={clip}",
-                         got, want, scale, 1e-5)
+                         got, again, want, scale, 1e-5)
 
     # 3 ------------------------------------------------------------------
     def example_gate(self):
@@ -402,42 +481,53 @@ class Smoke:
         from repro_torch.kernels.power_project import power_project, power_project_ref
 
         gen = torch.Generator(device=self.dev).manual_seed(SEED + 4)
-        powers = tuple(range(1, P))
-        X = torch.rand((BATCH, D), generator=gen, device=self.dev)
-        R = torch.randn((D, K), generator=gen, device=self.dev)
+        X, R, powers = power_project_inputs(torch, self.dev, gen)
         Xp = torch.stack([X ** e for e in powers])  # (P-1, n, D) for the library call
         flops = 2.0 * BATCH * D * K * len(powers)
         nbytes = 4.0 * (BATCH * D + D * K + BATCH * len(powers) * K)
-        pp = dict(ms=cuda_ms(lambda: power_project(X, R, powers), 20),
-                  plain_ms=cuda_ms(lambda: power_project_ref(X, R, powers), 20),
-                  library_ms=cuda_ms(lambda: torch.matmul(Xp, R), 20))
-        pp["bound_ms"], pp["bound_by"] = bound_ms(flops, nbytes)
+        it = POWER_PROJECT_ITERS
+        pp = dict(ms=cuda_ms(lambda: power_project(X, R, powers), it),
+                  plain_ms=cuda_ms(lambda: power_project_ref(X, R, powers), it),
+                  library_ms=cuda_ms(lambda: torch.matmul(Xp, R), it))
+        self._bounds(pp, flops, nbytes)
         log(f"time power_project X ({BATCH}, {D}) f32, R ({D}, {K}), powers {powers}: "
             f"kernel {pp['ms']:.4f} ms, plain {pp['plain_ms']:.4f} ms, library "
             f"{pp['library_ms']:.4f} ms (torch.matmul of the stacked powers, made "
-            f"beforehand, with R), bound {pp['bound_ms']:.4f} ms by {pp['bound_by']} "
-            f"({flops / 1e9:.1f} GFLOP fp32) {self.tag()}")
+            f"beforehand, with R), {self._bound_text(pp, flops)} {self.tag()}")
         del X, Xp
 
-        n = m = 2048
-        kk = (P - 1) * K
-        A = torch.randn((n, kk), generator=gen, device=self.dev)
-        B = torch.randn((m, kk), generator=gen, device=self.dev)
-        na = torch.rand(n, generator=gen, device=self.dev) * kk
-        nb = torch.rand(m, generator=gen, device=self.dev) * kk
+        A, B, na, nb = pairwise_lp_inputs(torch, self.dev, gen)
+        (n, kk), m = A.shape, B.shape[0]
         margins = na[:, None] + nb[None, :]
         flops = 2.0 * n * m * kk
         nbytes = 4.0 * ((n + m) * kk + n + m + n * m)
-        pl = dict(ms=cuda_ms(lambda: pairwise_lp(A, B, na, nb), 100),
-                  plain_ms=cuda_ms(lambda: pairwise_lp_ref(A, B, na, nb), 100),
-                  library_ms=cuda_ms(lambda: torch.addmm(margins, A, B.T), 100))
-        pl["bound_ms"], pl["bound_by"] = bound_ms(flops, nbytes)
+        it = PAIRWISE_LP_ITERS
+        pl = dict(ms=cuda_ms(lambda: pairwise_lp(A, B, na, nb), it),
+                  plain_ms=cuda_ms(lambda: pairwise_lp_ref(A, B, na, nb), it),
+                  library_ms=cuda_ms(lambda: torch.addmm(margins, A, B.T), it))
+        self._bounds(pl, flops, nbytes)
         log(f"time pairwise_lp A ({n}, {kk}) f32, B ({m}, {kk}), clip: kernel "
             f"{pl['ms']:.4f} ms, plain {pl['plain_ms']:.4f} ms, library "
             f"{pl['library_ms']:.4f} ms (torch.addmm of the margin matrix and A @ B.T, "
-            f"no clip), bound {pl['bound_ms']:.4f} ms by {pl['bound_by']} "
-            f"({flops / 1e9:.2f} GFLOP fp32) {self.tag()}")
+            f"no clip), {self._bound_text(pl, flops)} {self.tag()}")
         self.kernel_times = {"power_project": pp, "pairwise_lp": pl}
+
+    @staticmethod
+    def _bounds(t: dict, flops: float, nbytes: float):
+        """The kernel's bound by its route, and the fp32 CUDA-core bound;
+        a time under the route's bound means the bound is wrong."""
+        t["bound_ms"], t["bound_by"] = bound_ms(flops, nbytes)
+        t["fp32_bound_ms"] = fp32_bound_ms(flops, nbytes)
+        if t["ms"] < t["bound_ms"]:
+            raise AssertionError(f"kernel time {t['ms']} ms is under its bound "
+                                 f"{t['bound_ms']} ms")
+
+    @staticmethod
+    def _bound_text(t: dict, flops: float) -> str:
+        return (f"bound {t['bound_ms']:.4f} ms by {t['bound_by']} ({flops / 1e9:.2f} "
+                f"GFLOP as {TF32_PRODUCTS} TF32 products each at "
+                f"{PEAK_TF32_FLOPS / 1e12:g} TFLOP/s; {t['bound_ms'] / t['ms']:.3f} of it "
+                f"reached), fp32 CUDA-core bound {t['fp32_bound_ms']:.4f} ms")
 
     def profile(self):
         """Device time by kernel and idle share of two short windows."""
@@ -489,7 +579,7 @@ class Smoke:
         for name, replaces in (("power_project", "src/repro/kernels/power_project/kernel.py:85"),
                                ("pairwise_lp", "src/repro/kernels/pairwise_lp/kernel.py:78")):
             t = self.kernel_times[name]
-            rows.append({"name": name, "route": "cuda",
+            rows.append({"name": name, "route": "cuda", "scheme": SCHEME,
                          "source": f"src/repro_torch/csrc/{name}.cu", "replaces": replaces,
                          "launches": self.launches[name], "max_abs_err": self.err[name],
                          "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

@@ -3,9 +3,10 @@
 Each ``<name>.cu`` has a plain C interface and is compiled by ``nvcc`` for
 Hopper (``sm_90a``) into ``build/kernels/<name>-<hash>.so`` at the root of
 the checkout, at first use, and loaded with ``ctypes``.  The hash covers
-the source and the flags, so an edited source builds anew and an unchanged
-one is reused.  Sources that are missing their library are compiled in
-parallel, one ``nvcc`` each.  Nothing here runs when the module is
+the source, every shared header in ``csrc`` (``*.cuh``) and the flags, so
+an edited source or header builds anew and an unchanged one is reused.
+Sources that are missing their library are compiled in parallel, one
+``nvcc`` each.  Nothing here runs when the module is
 imported: the CPU tests import every module and have no ``nvcc``.
 """
 
@@ -19,9 +20,9 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, Optional, Tuple
 
-__all__ = ["KERNELS", "BUILD_DIR", "build", "load", "ptxas_report"]
+__all__ = ["KERNELS", "BUILD_DIR", "build", "load", "ptxas_report", "sass"]
 
 KERNELS = ("power_project", "pairwise_lp")
 
@@ -48,8 +49,10 @@ def _nvcc() -> str:
 
 
 def _library(name: str) -> Path:
-    src = _CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(_FLAGS).encode())
+    digest = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -114,3 +117,13 @@ def ptxas_report(name: str) -> str:
     """What ``ptxas -v`` said when this process built ``name`` (registers,
     shared memory, spills per instantiation); empty if it was reused."""
     return _PTXAS.get(name, "")
+
+
+def sass(name: str) -> Optional[str]:
+    """``cuobjdump -sass`` of kernel ``name``'s built library, or None when
+    the toolkit beside ``nvcc`` has no ``cuobjdump``."""
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return None
+    return subprocess.run([str(tool), "-sass", str(_library(name))], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
