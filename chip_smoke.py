@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch port (``src/repro_torch``) through its main path on one
-CUDA card and checks it.
+"""Drives the PyTorch port (``src/repro_torch``) through its main paths on one
+CUDA card and checks it: the engine path (phase 4) and the index and its
+service (phase 6).
 
   python3 chip_smoke.py
 
@@ -11,9 +12,11 @@ fails:
      with nvcc for sm_90a, in parallel; ``cuobjdump -sass`` of each library
      must show tensor-core instructions (HMMA on TF32, or HGMMA).
   2. kernel against plain version: each kernel is held against its plain
-     PyTorch version on the same inputs, at the main path's shapes and at
-     ragged ones (rows not 16-byte aligned, one past a tile, depth below
-     one MMA step), with float32 and bfloat16 inputs; a second launch on
+     PyTorch version on the same inputs, at the shapes phases 4 and 6 give
+     it (the engine's 2,048-row strips, the index fan's 4,096-, 128-, 64-
+     and 16-row strips, the index's query batches) and at ragged ones
+     (rows not 16-byte aligned, one past a tile, depth below one MMA
+     step), with float32 and bfloat16 inputs; a second launch on
      the same inputs must repeat the first bit for bit.
   3. example gate: examples/knn_search.py's data and sizes (N=2048,
      D=16384, Q=16, p=4, k=256, block_d=4096) through the port; the
@@ -25,7 +28,20 @@ fails:
      query of 256 queries x 65,536 rows.  The kernels' launch counters are
      set to 0 just before and read just after; each must be above 0.
   5. kernel route against plain route on a 65,536-row slice of the corpus.
-  6. timings of each kernel, its plain version and the nearest PyTorch
+  6. index: phase 4's rows (same generator and key, batches of 4,096) are
+     ingested through ``repro_torch.runtime.SketchKnnService`` into 256
+     sealed segments of ``repro_torch.index``; the first and last batch's
+     sketches must equal phase 4's bit for bit.  Then 4,096 plain top-10
+     queries (ids equal to phase 4's engine answer away from near-ties),
+     256 margin-MLE top-10 queries (cluster recall@1 >= 0.9), a relative
+     threshold of 64 queries over the whole index (hits equal to the
+     engine's, away from the radius), a delete of 4 of the 32 clusters (no
+     deleted id surfaces), a compaction (plain top-10 equal bit for bit),
+     a save and reload under build/ (equal bit for bit), and 8 threads x 16
+     rows through the ``MicroBatcher`` (one batch, each answer equal to a
+     direct query).  Both launch counters are set to 0 at the phase's
+     start; each must be above 0 at its end.
+  7. timings of each kernel, its plain version and the nearest PyTorch
      library call at the main path's shapes, beside the least time the card
      could take for the kernel's route (bound: three TF32 tensor-core
      products per product, or the bytes) and the fp32 CUDA-core bound, and
@@ -38,11 +54,14 @@ non-zero at once without one.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -74,6 +93,10 @@ MLE_QUERIES = 256
 THRESHOLD_ROWS = 65_536
 TOP_K = 10
 RELATIVE_RADIUS = 0.1
+INDEX_THRESHOLD_QUERIES = 64
+DELETED_CLUSTERS = 4
+BATCHER_THREADS = 8
+BATCHER_ROWS = 16
 
 
 def log(msg: str) -> None:
@@ -225,6 +248,12 @@ class Smoke:
             (65, 5004, 132, (3, 1), torch.bfloat16),
             (1, 3, 5, (1, 2, 3), torch.float32),
             (1, 3, 5, (1, 2, 3), torch.bfloat16),
+            # the index phase's query batches: MLE, micro-batch, threshold,
+            # one micro-batch caller
+            (MLE_QUERIES, D, K, (1, 2, 3), torch.float32),
+            (BATCHER_THREADS * BATCHER_ROWS, D, K, (1, 2, 3), torch.float32),
+            (INDEX_THRESHOLD_QUERIES, D, K, (1, 2, 3), torch.float32),
+            (BATCHER_ROWS, D, K, (1, 2, 3), torch.float32),
         ]
         for n, d, k, powers, dtype in cases:
             X = torch.rand((n, d), generator=gen, device=self.dev).to(dtype)
@@ -258,6 +287,16 @@ class Smoke:
             (2049, 2049, 768, True, torch.float32),
             (2049, 129, 772, False, torch.bfloat16),
             (1, 3, 5, False, torch.bfloat16),
+            # the index fan's strips: every query of a call against one
+            # segment's 2,048 columns, the tails of compacted segments, the
+            # threshold's, the micro-batch's and one caller's queries
+            (PLAIN_QUERIES, 2048, 768, True, torch.float32),
+            (PLAIN_QUERIES, 2048, 768, False, torch.float32),
+            (PLAIN_QUERIES, 1536, 768, True, torch.float32),
+            (PLAIN_QUERIES, 1531, 768, True, torch.float32),
+            (INDEX_THRESHOLD_QUERIES, 2048, 768, True, torch.float32),
+            (BATCHER_THREADS * BATCHER_ROWS, 2048, 768, True, torch.float32),
+            (BATCHER_ROWS, 2048, 768, True, torch.float32),
         ]
         for n, m, k, clip, dtype in cases:
             A = torch.randn((n, k), generator=gen, device=self.dev).to(dtype)
@@ -318,6 +357,24 @@ class Smoke:
         X = torch.randn((labels.numel(), D), generator=gen, device=self.dev)
         return X.mul_(NOISE).add_(centres[labels])
 
+    def _corpus_source(self):
+        """The seeded corpus of phase 4: (generator, centres, labels); the
+        first 8 rows drawn from the generator are the R-draw call's."""
+        torch = self.torch
+        gen = torch.Generator(device=self.dev).manual_seed(SEED)
+        centres = torch.rand((CLUSTERS, D), generator=gen, device=self.dev)
+        labels = torch.arange(CORPUS_ROWS, device=self.dev) % CLUSTERS
+        return gen, centres, labels
+
+    def _query_source(self):
+        """The seeded queries of phase 4: (generator, labels); the rows are
+        drawn next from the generator."""
+        torch = self.torch
+        qgen = torch.Generator(device=self.dev).manual_seed(SEED + 3)
+        qlabels = torch.randint(0, CLUSTERS, (PLAIN_QUERIES,), generator=qgen,
+                                device=self.dev)
+        return qgen, qlabels
+
     def main_path(self):
         torch = self.torch
         from repro_torch import engine
@@ -325,14 +382,10 @@ class Smoke:
 
         cfg = SketchConfig(p=P, k=K, block_d=BLOCK_D)
         key = ProjectionKey(SEED)
-        gen = torch.Generator(device=self.dev).manual_seed(SEED)
-        centres = torch.rand((CLUSTERS, D), generator=gen, device=self.dev)
+        gen, centres, labels = self._corpus_source()
         U = torch.empty((CORPUS_ROWS, P - 1, K), device=self.dev)
         M = torch.empty((CORPUS_ROWS, P - 1), device=self.dev)
-        labels = torch.arange(CORPUS_ROWS, device=self.dev) % CLUSTERS
-        qgen = torch.Generator(device=self.dev).manual_seed(SEED + 3)
-        qlabels = torch.randint(0, CLUSTERS, (PLAIN_QUERIES,), generator=qgen,
-                                device=self.dev)
+        qgen, qlabels = self._query_source()
         # first use draws the R tiles (copied to the card, then cached)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -420,7 +473,10 @@ class Smoke:
             f"queries, mle {mr:.4f} over {MLE_QUERIES}; share of plain top-{TOP_K} values "
             f"clipped to 0: {clipped:.4f}; threshold hits inside the query's cluster: "
             f"{same:.4f}")
-        self.corpus, self.qsk, self.mq, self.cfg = corpus, qsk, mq, cfg
+        self.corpus, self.qsk, self.mq, self.cfg, self.key = corpus, qsk, mq, cfg, key
+        self.engine_answers = {"plain": (pv, pi), "mle": (mv, mi)}
+        self.engine_s = {"plain": plain_s, "mle": mle_s}
+        self.ingest_rows_s = CORPUS_ROWS / ingest_s
 
     # 5 ------------------------------------------------------------------
     def agreement(self):
@@ -437,6 +493,7 @@ class Smoke:
         # 1e-5 of the largest sum of |terms| bounds float32 rounding
         scale = float((A.abs() @ B.abs().T).max() + na.max() + nb.max())
         tol = 1e-5 * scale
+        self.agree_tol = tol
         # one candidate more than is compared, so the last rank's gap is known
         kv, ki = engine.pairwise(self.qsk, sl, cfg, reduce="topk", top_k=TOP_K + 1,
                                  clip=False)
@@ -475,6 +532,239 @@ class Smoke:
             raise AssertionError("kernel and plain routes disagree on threshold hits")
 
     # 6 ------------------------------------------------------------------
+    def index_phase(self):
+        """The single-host index and its service at the main path's size:
+        ingest, plain/MLE/threshold queries, delete, compact, save/load and
+        the micro-batcher, each held against the engine path of phase 4."""
+        torch = self.torch
+        from repro_torch.core import LpSketch
+        from repro_torch.index import MicroBatcher
+        from repro_torch.runtime import SketchKnnService
+
+        cfg, tag = self.cfg, self.tag()
+        for kern in self.kernels.values():
+            kern.launches = 0
+        # the key of phase 4: one R, so its sketches and the index's must agree
+        svc = SketchKnnService(cfg, seed=SEED, segment_capacity=BATCH, key=self.key)
+        index = svc.index
+        gen, centres, labels = self._corpus_source()
+        self._rows(gen, centres, labels[:8])  # phase 4's R-draw rows
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for r0 in range(0, CORPUS_ROWS, BATCH):
+            svc.ingest(self._rows(gen, centres, labels[r0:r0 + BATCH]))
+        torch.cuda.synchronize()
+        ingest_s = time.perf_counter() - t0
+        log(f"time index ingest: {CORPUS_ROWS} rows x {D} in {ingest_s:.3f} s wall with the "
+            f"rows made on the card = {CORPUS_ROWS / ingest_s:.1f} rows/s (engine path, phase "
+            f"4: {self.ingest_rows_s:.1f} rows/s); {len(index.sealed)} sealed segments {tag}")
+        if len(index.sealed) != CORPUS_ROWS // BATCH or index.n_live != CORPUS_ROWS:
+            raise AssertionError(f"index holds {len(index.sealed)} sealed segments and "
+                                 f"{index.n_live} live rows")
+        for seg, r0 in ((index.sealed[0], 0), (index.sealed[-1], CORPUS_ROWS - BATCH)):
+            if not (torch.equal(seg.sketch.U, self.corpus.U[r0:r0 + BATCH])
+                    and torch.equal(seg.sketch.moments, self.corpus.moments[r0:r0 + BATCH])):
+                raise AssertionError(f"the index's sketch of rows {r0}.. differs from phase 4's")
+        log("index sketches of the first and last batch equal phase 4's bit for bit")
+
+        qgen, qlabels = self._query_source()
+        Xq = self._rows(qgen, centres, qlabels)  # phase 4's query rows
+        lab, ql = labels.cpu().numpy(), qlabels.cpu().numpy()
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+        # the first call also packs every sealed segment's right factor once
+        (iv, ii), first_s = timed(lambda: svc.query(Xq, top_k=TOP_K))
+        (iv2, ii2), plain_s = timed(lambda: svc.query(Xq, top_k=TOP_K))
+        if not (torch.equal(iv, iv2) and np.array_equal(ii, ii2)):
+            raise AssertionError("two plain index queries on the same rows differ")
+        ev, ei = self.engine_answers["plain"]
+        self._check_index_topk("plain", iv, ii, ev, ei, self.qsk)
+        eng_ms = self.engine_s["plain"] * 1e3 / PLAIN_QUERIES
+        log(f"time index plain top-{TOP_K}: {PLAIN_QUERIES} queries x {CORPUS_ROWS} rows "
+            f"through service.query (query sketch included) {plain_s * 1e3:.1f} ms = "
+            f"{plain_s * 1e3 / PLAIN_QUERIES:.4f} ms/query; first call, packing every "
+            f"segment, {first_s * 1e3:.1f} ms; engine path (knn, phase 4, query sketch "
+            f"excluded) {eng_ms:.4f} ms/query {tag}")
+
+        (mv, mi), mle_s = timed(lambda: svc.query(Xq[:MLE_QUERIES], top_k=TOP_K, mle=True))
+        recall = float(np.mean(lab[mi[:, 0]] == ql[:MLE_QUERIES]))
+        emv, emi = self.engine_answers["mle"]
+        log(f"time index mle top-{TOP_K}: {MLE_QUERIES} queries in {mle_s * 1e3:.1f} ms = "
+            f"{mle_s * 1e3 / MLE_QUERIES:.4f} ms/query (engine path {self.engine_s['mle'] * 1e3:.1f}"
+            f" ms); cluster recall@1 {recall:.4f} (gate >= 0.9); ids equal to the engine's "
+            f"{float(np.mean(mi == emi.cpu().numpy())):.4f}, values bit-equal "
+            f"{torch.equal(mv, emv)} {tag}")
+        if recall < 0.9:
+            raise AssertionError(f"index MLE cluster recall@1 {recall} < 0.9")
+
+        self._check_index_threshold(index, Xq[:INDEX_THRESHOLD_QUERIES], timed)
+
+        gone = np.flatnonzero(lab < DELETED_CLUSTERS)  # ids are ingest positions
+        removed, del_s = timed(lambda: svc.delete(gone))
+        if removed != len(gone):
+            raise AssertionError(f"delete removed {removed} of {len(gone)} rows")
+        dv, di = svc.query(Xq, top_k=TOP_K)
+        _, dmi = svc.query(Xq[:MLE_QUERIES], top_k=TOP_K, mle=True)
+        if np.isin(di, gone).any() or np.isin(dmi, gone).any():
+            raise AssertionError("a deleted id surfaced in a top-10")
+        rewritten, compact_s = timed(lambda: index.compact(min_live_frac=0.95))
+        cv, ci = svc.query(Xq, top_k=TOP_K)
+        if not (torch.equal(cv, dv) and np.array_equal(ci, di)):
+            raise AssertionError("compaction changed the plain top-10")
+        log(f"time index delete of {DELETED_CLUSTERS} of {CLUSTERS} clusters ({removed} rows): "
+            f"{del_s:.3f} s; compaction of {rewritten} segments (live fraction <= 0.95): "
+            f"{compact_s:.3f} s; no deleted id in a plain or mle top-{TOP_K}; plain top-{TOP_K} "
+            f"equal bit for bit before and after compaction {tag}")
+
+        path = ROOT / "build" / "smoke_index"
+        shutil.rmtree(path, ignore_errors=True)
+        _, save_s = timed(lambda: svc.save(str(path)))
+        nbytes = sum(f.stat().st_size for f in path.iterdir())
+        loaded, load_s = timed(lambda: SketchKnnService.load(str(path), key=self.key))
+        lv, li = loaded.query(Xq, top_k=TOP_K)
+        shutil.rmtree(path)
+        if not (torch.equal(lv, cv) and np.array_equal(li, ci)):
+            raise AssertionError("the reloaded index answers another plain top-10")
+        del loaded
+        log(f"time index save {save_s:.3f} s, load {load_s:.3f} s, {nbytes} bytes on disk "
+            f"({len(index.sealed)} segments); reloaded plain top-{TOP_K} equal bit for bit {tag}")
+
+        self._check_batcher(svc, MicroBatcher, Xq)
+
+        self.index_launches = {name: kern.launches for name, kern in self.kernels.items()}
+        log(f"index phase launches (comparisons with the engine and direct queries "
+            f"excluded): {self.index_launches}")
+        for name, n in self.index_launches.items():
+            if n <= 0:
+                raise AssertionError(f"{name} was never launched in the index phase")
+        self._profile_window(f"index plain, {PLAIN_QUERIES} queries x {index.n_live} live rows "
+                             f"in {len(index.sealed)} segments (query sketch given)",
+                             lambda: index.query_sketch(self.qsk, top_k=TOP_K))
+        qt = LpSketch(U=self.qsk.U[:INDEX_THRESHOLD_QUERIES],
+                      moments=self.qsk.moments[:INDEX_THRESHOLD_QUERIES])
+        self._profile_window(f"index threshold (relative {RELATIVE_RADIUS}), "
+                             f"{INDEX_THRESHOLD_QUERIES} queries x {index.n_live} live rows "
+                             f"(query sketch given)",
+                             lambda: index.query_threshold_sketch(
+                                 qt, radius=RELATIVE_RADIUS, relative=True))
+
+    @contextlib.contextmanager
+    def _uncounted(self):
+        """Launches made inside only to compare with another route do not
+        count towards the path's launches."""
+        saved = {name: kern.launches for name, kern in self.kernels.items()}
+        try:
+            yield
+        finally:
+            for name, kern in self.kernels.items():
+                kern.launches = saved[name]
+
+    def _check_index_topk(self, name, iv, ii, ev, ei, qsk):
+        """Index top-k against the engine's: ids equal wherever the engine's
+        value at that rank is more than the route-agreement tolerance from
+        its neighbours, the 11th included."""
+        torch = self.torch
+        from repro_torch import engine
+        from repro_torch.core import LpSketch
+
+        ei_h = ei.cpu().numpy()
+        bad_rows = np.flatnonzero((ii != ei_h).any(axis=1))
+        bits = torch.equal(iv, ev)
+        log(f"index {name} top-{TOP_K} against the engine path: values bit-equal {bits}, "
+            f"max |dv| {float((iv - ev).abs().max()):.6g}, rows with other ids "
+            f"{len(bad_rows)} of {ii.shape[0]}")
+        if not len(bad_rows):
+            return
+        rows = torch.from_numpy(bad_rows).to(self.dev)
+        sub = LpSketch(U=qsk.U[rows], moments=qsk.moments[rows])
+        with self._uncounted():
+            wv, _ = engine.pairwise(sub, self.corpus, self.cfg, reduce="topk",
+                                    top_k=TOP_K + 1)
+        gaps = torch.diff(wv, dim=1)
+        near = torch.zeros_like(wv, dtype=torch.bool)
+        near[:, 1:] |= gaps <= self.agree_tol
+        near[:, :-1] |= gaps <= self.agree_tol
+        differ = torch.from_numpy(ii[bad_rows] != ei_h[bad_rows]).to(self.dev)
+        if bool((differ & ~near[:, :TOP_K]).any()):
+            raise AssertionError(f"index {name} top-{TOP_K} ids differ from the engine's "
+                                 f"away from near-ties")
+
+    def _check_index_threshold(self, index, Xt, timed):
+        """A relative threshold over the whole index against the engine's
+        threshold over phase 4's corpus sketch."""
+        torch = self.torch
+        from repro_torch import engine
+        from repro_torch.core import LpSketch, pack_sketch, sketch
+
+        (hr, hid), thr_s = timed(lambda: index.query_threshold(
+            Xt, radius=RELATIVE_RADIUS, relative=True))
+        with self._uncounted():
+            qt = sketch(Xt, self.key, self.cfg)
+            (er, ec), eng_s = timed(lambda: engine.pairwise(
+                qt, self.corpus, self.cfg, reduce="threshold", radius=RELATIVE_RADIUS,
+                relative=True))
+        got = hr * CORPUS_ROWS + hid
+        want = (er * CORPUS_ROWS + ec).cpu().numpy()
+        diff = np.setxor1d(got, want)
+        worst = 0.0
+        if diff.size:
+            r = torch.from_numpy(diff // CORPUS_ROWS).to(self.dev)
+            c = torch.from_numpy(diff % CORPUS_ROWS).to(self.dev)
+            A, _, na = pack_sketch(LpSketch(qt.U[r], qt.moments[r]), self.cfg)
+            _, B, nb = pack_sketch(LpSketch(self.corpus.U[c], self.corpus.moments[c]), self.cfg)
+            rel = (na + nb + (A * B).sum(dim=1)) / (na + nb)
+            worst = float((rel - RELATIVE_RADIUS).abs().max()) / RELATIVE_RADIUS
+        log(f"time index threshold (relative {RELATIVE_RADIUS}): {Xt.shape[0]} queries x "
+            f"{CORPUS_ROWS} rows in {thr_s * 1e3:.1f} ms, {got.size} pairs (engine path "
+            f"{eng_s * 1e3:.1f} ms, {want.size} pairs); differing {diff.size}, their largest "
+            f"distance from the radius {worst:.3g} of it (tol 1e-3); sorted by (query, id) "
+            f"{bool(np.all(np.diff(got) > 0))} {self.tag()}")
+        if worst > 1e-3 or not np.all(np.diff(got) > 0):
+            raise AssertionError("index threshold hits disagree with the engine's")
+
+    def _check_batcher(self, svc, MicroBatcher, Xq):
+        """Concurrent callers coalesced into one pass; each answer equals a
+        direct query of the caller's rows."""
+        torch = self.torch
+        mb = MicroBatcher(svc.index, max_batch=BATCHER_THREADS * BATCHER_ROWS,
+                          max_wait_ms=10_000.0)
+        parts = [Xq[i * BATCHER_ROWS:(i + 1) * BATCHER_ROWS] for i in range(BATCHER_THREADS)]
+        results, errors = [None] * BATCHER_THREADS, []
+
+        def call(i):
+            try:
+                results[i] = mb.query(parts[i], top_k=TOP_K)
+            except BaseException as e:  # surfaced below, in the main thread
+                errors.append(e)
+
+        threads = [threading.Thread(target=call, args=(i,)) for i in range(BATCHER_THREADS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if any(t.is_alive() for t in threads) or errors:
+            raise AssertionError(f"micro-batcher callers failed or hung: {errors}")
+        for i, (v, ids) in enumerate(results):
+            with self._uncounted():
+                dv, di = svc.query(parts[i], top_k=TOP_K)
+            if not (torch.equal(v, dv) and np.array_equal(ids, di)):
+                raise AssertionError(f"micro-batcher caller {i} differs from a direct query")
+        log(f"micro-batcher: {BATCHER_THREADS} threads x {BATCHER_ROWS} rows in "
+            f"{mb.batches_run} batch(es), {wall * 1e3:.1f} ms wall; each answer equals a "
+            f"direct query {self.tag()}")
+        if mb.batches_run != 1:
+            raise AssertionError(f"{mb.batches_run} batches, not one coalesced batch")
+
+    # 7 ------------------------------------------------------------------
     def time_kernels(self):
         torch = self.torch
         from repro_torch.kernels.pairwise_lp import pairwise_lp, pairwise_lp_ref
@@ -532,8 +822,6 @@ class Smoke:
     def profile(self):
         """Device time by kernel and idle share of two short windows."""
         torch = self.torch
-        from torch.profiler import ProfilerActivity, profile
-
         from repro_torch.core import LpSketch, ProjectionKey, knn, sketch
 
         key = ProjectionKey(SEED)
@@ -551,28 +839,42 @@ class Smoke:
              lambda: knn(self.qsk, sl, self.cfg, top_k=TOP_K)),
         )
         for title, fn in windows:
+            self._profile_window(title, fn)
+
+    def _profile_window(self, title: str, fn) -> None:
+        """Device time by kernel and the idle share of one call of ``fn``,
+        after one unprofiled call."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                wall = (time.perf_counter() - t0) * 1e3
-            rows = []
-            for evt in prof.key_averages():
-                dev_us = getattr(evt, "self_device_time_total",
-                                 getattr(evt, "self_cuda_time_total", 0))
-                if dev_us > 0 and evt.device_type.name == "CUDA":
-                    rows.append((dev_us / 1e3, evt.count, evt.key))
-            busy = sum(r[0] for r in rows)
-            if busy <= 0:
-                log(f"profile {title}: no device time in the trace (not measured)")
-                continue
-            log(f"profile {title}: wall {wall:.2f} ms, kernels {busy:.2f} ms, idle share "
-                f"{max(0.0, 1 - busy / wall):.3f} {self.tag()}")
-            for ms, count, name in sorted(rows, reverse=True)[:6]:
-                log(f"  {ms:9.3f} ms {100 * ms / busy:5.1f}% x{count:<5d} {name[:80]} "
-                    f"{self.tag()}")
+            wall = (time.perf_counter() - t0) * 1e3
+        rows, host = [], []
+        for evt in prof.key_averages():
+            dev_us = getattr(evt, "self_device_time_total",
+                             getattr(evt, "self_cuda_time_total", 0))
+            if dev_us > 0 and evt.device_type.name == "CUDA":
+                rows.append((dev_us / 1e3, evt.count, evt.key))
+            elif evt.device_type.name == "CPU" and evt.self_cpu_time_total > 0:
+                host.append((evt.self_cpu_time_total / 1e3, evt.count, evt.key))
+        busy = sum(r[0] for r in rows)
+        if busy <= 0:
+            log(f"profile {title}: no device time in the trace (not measured)")
+            return
+        log(f"profile {title}: wall {wall:.2f} ms, kernels {busy:.2f} ms, idle share "
+            f"{max(0.0, 1 - busy / wall):.3f} {self.tag()}")
+        for ms, count, name in sorted(rows, reverse=True)[:6]:
+            log(f"  {ms:9.3f} ms {100 * ms / busy:5.1f}% x{count:<5d} {name[:80]} "
+                f"{self.tag()}")
+        # host time under the profiler: waits on the device land in the op
+        # that waits (a copy to the host, a nonzero's count)
+        for ms, count, name in sorted(host, reverse=True)[:4]:
+            log(f"  host {ms:9.3f} ms x{count:<5d} {name[:60]} {self.tag()}")
 
     def result_line(self) -> str:
         rows = []
@@ -581,7 +883,10 @@ class Smoke:
             t = self.kernel_times[name]
             rows.append({"name": name, "route": "cuda", "scheme": SCHEME,
                          "source": f"src/repro_torch/csrc/{name}.cu", "replaces": replaces,
-                         "launches": self.launches[name], "max_abs_err": self.err[name],
+                         "launches": self.launches[name],
+                         "launches_by_path": {"engine": self.launches[name],
+                                              "index": self.index_launches[name]},
+                         "max_abs_err": self.err[name],
                          "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                          "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
         for row in rows:
@@ -610,6 +915,7 @@ def main() -> int:
     smoke.example_gate()
     smoke.main_path()
     smoke.agreement()
+    smoke.index_phase()
     smoke.time_kernels()
     smoke.profile()
     log(f"total {time.perf_counter() - t_start:.1f} s {smoke.tag()}")

@@ -8,6 +8,10 @@ projection families an estimator serves and how its strips are computed;
 The built-in specs are the even-p estimators, ``plain`` (packed-factor
 strips) and ``mle`` (margin-MLE Newton strips).  The fractional-p ``gm``
 spec is not ported yet: it needs the α-stable projections.
+
+Each spec declares its :class:`RouteCapabilities`, the serving routes its
+strips may ride; the index's query planner reads them instead of
+estimator names.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 __all__ = [
     "PDomain",
+    "RouteCapabilities",
     "EstimatorSpec",
     "get",
     "resolve",
@@ -27,12 +32,18 @@ __all__ = [
     "PLAIN",
     "MARGIN_MLE",
     "DEFAULT_ESTIMATOR",
+    "STACKED_PACKED",
+    "STACKED_SKETCH",
 ]
 
 # canonical estimator names — the only quoted estimator literals in the port
 PLAIN = "plain"
 MARGIN_MLE = "mle"
 DEFAULT_ESTIMATOR = PLAIN
+
+# the stacked top-k programs a spec may name (``RouteCapabilities``)
+STACKED_PACKED = "packed"      # packed-factor matmul strips (plain)
+STACKED_SKETCH = "sketch_mle"  # raw-sketch Newton strips (margin-MLE)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,6 +83,26 @@ SKETCH_EVEN_P = PDomain(even_min=4)   # the paper's sketch (p-1 >= 3 orders)
 
 
 @dataclasses.dataclass(frozen=True)
+class RouteCapabilities:
+    """What serving routes an estimator's strips can ride.
+
+    Attributes:
+      stacked_topk: which stacked top-k program serves this estimator
+        (:data:`STACKED_PACKED` / :data:`STACKED_SKETCH`), or ``None`` when
+        none exists.
+      stacked_threshold: a stacked threshold program exists.
+      fused_bitwise_stable: the strips are bitwise invariant under the
+        stacked fan's re-tiling.  When False the planner keeps the
+        estimator on the exact per-segment fan unless the caller opts into
+        an ``ApproxContract``.
+    """
+
+    stacked_topk: Optional[str] = None
+    stacked_threshold: bool = False
+    fused_bitwise_stable: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
 class EstimatorSpec:
     """One estimator scenario, declared as data.
 
@@ -83,6 +114,7 @@ class EstimatorSpec:
       uses_packed: strips are one packed product (``pairwise_lp``); False
         means strips call ``pairwise`` on the raw sketches.
       pairwise: ``(sa, sb, cfg, *, clip=True) -> (n, m)`` strip estimates.
+      capabilities: :class:`RouteCapabilities` the planner reads.
     """
 
     name: str
@@ -91,6 +123,7 @@ class EstimatorSpec:
     projections: Tuple[str, ...]
     uses_packed: bool
     pairwise: Callable
+    capabilities: RouteCapabilities = RouteCapabilities()
 
 
 _LOCK = threading.Lock()
@@ -148,6 +181,11 @@ def _ensure_builtins() -> None:
             projections=_SUBGAUSSIAN,
             uses_packed=True,
             pairwise=pairwise_distances,
+            capabilities=RouteCapabilities(
+                stacked_topk=STACKED_PACKED,
+                stacked_threshold=True,
+                fused_bitwise_stable=True,
+            ),
         )
         _SPECS[MARGIN_MLE] = EstimatorSpec(
             name=MARGIN_MLE,
@@ -156,5 +194,11 @@ def _ensure_builtins() -> None:
             projections=_SUBGAUSSIAN,
             uses_packed=False,
             pairwise=pairwise_margin_mle,
+            capabilities=RouteCapabilities(
+                stacked_topk=STACKED_SKETCH,
+                stacked_threshold=False,
+                # Newton strips are not bitwise stable under re-tiling
+                fused_bitwise_stable=False,
+            ),
         )
         _BUILTINS_REGISTERED = True

@@ -9,7 +9,8 @@
 from .api import pairwise
 from .backends import strip_distances
 from .config import BACKENDS, EngineConfig
-from .reduce import merge_topk, rerank_topk, streaming_topk_strips, strip_bounds
+from .reduce import (float32_radius, merge_topk, rerank_topk, row_major,
+                     streaming_topk_strips, strip_bounds, threshold_hits)
 
 __all__ = [
     "pairwise",
@@ -20,4 +21,7 @@ __all__ = [
     "rerank_topk",
     "streaming_topk_strips",
     "strip_bounds",
+    "float32_radius",
+    "threshold_hits",
+    "row_major",
 ]

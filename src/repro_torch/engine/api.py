@@ -27,7 +27,8 @@ from ..core.pairwise import pack_left, pack_right
 from ..core.sketch import LpSketch, SketchConfig
 from .backends import strip_distances
 from .config import EngineConfig
-from .reduce import streaming_topk_strips, strip_bounds
+from .reduce import (float32_radius, row_major, streaming_topk_strips, strip_bounds,
+                     threshold_hits)
 
 __all__ = ["pairwise"]
 
@@ -117,24 +118,18 @@ def pairwise(
         return torch.cat(vals, dim=0), torch.cat(idx, dim=0)
 
     if reduce == "threshold":
-        # float32 radius contract: strips are float32, and comparing against
-        # a float64 radius would flip ties exactly at the (scaled) radius
-        r32 = torch.tensor(radius, dtype=torch.float32, device=device)
+        r32 = float32_radius(radius, device)
         rows_out, cols_out = [], []
         for r0, r1 in strip_bounds(n, row_block):
             for c0, c1 in strip_bounds(m, col_block):
-                D = strip(r0, r1, c0, c1)
-                if relative:
-                    thr = r32 * (na[r0:r1, None] + nb[None, c0:c1])
-                else:
-                    thr = r32
-                rr, cc = torch.nonzero(D < thr, as_tuple=True)
+                hit = threshold_hits(strip(r0, r1, c0, c1), r32, na[r0:r1],
+                                     nb[c0:c1], relative)
+                rr, cc = torch.nonzero(hit, as_tuple=True)
                 rows_out.append(rr + r0)
                 cols_out.append(cc + c0)
         rows = torch.cat(rows_out) if rows_out else torch.zeros(0, dtype=torch.int64, device=device)
         cols = torch.cat(cols_out) if cols_out else torch.zeros(0, dtype=torch.int64, device=device)
-        order = torch.argsort(rows * m + cols)  # row-major, as nonzero on dense
-        return rows[order], cols[order]
+        return row_major(rows, cols, m)
 
     out = torch.empty((n, m), dtype=torch.float32)
     for r0, r1 in strip_bounds(n, row_block):

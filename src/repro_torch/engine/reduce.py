@@ -21,6 +21,9 @@ __all__ = [
     "merge_topk",
     "rerank_topk",
     "strip_bounds",
+    "float32_radius",
+    "threshold_hits",
+    "row_major",
 ]
 
 _LOW32 = 0xFFFFFFFF
@@ -98,3 +101,26 @@ def streaming_topk_strips(
         cand = _smallest(_keys(D, col.expand(D.shape[0], -1)), k)
         best = cand if best is None else _smallest(torch.cat([best, cand], dim=1), k)
     return _decode(best)
+
+
+def float32_radius(radius: float, device) -> torch.Tensor:
+    """The threshold radius rounded to float32, once per call: strips are
+    float32, and comparing against a float64 radius would flip ties exactly
+    at the (scaled) radius."""
+    return torch.tensor(radius, dtype=torch.float32, device=device)
+
+
+def threshold_hits(D: torch.Tensor, r32: torch.Tensor, na: torch.Tensor,
+                   nb: torch.Tensor, relative: bool) -> torch.Tensor:
+    """(rows, cols) bool hit mask of one strip: ``D < r32`` or, relative,
+    ``D < r32 * (na_i + nb_j)``, the scale summed and multiplied in float32
+    (``r32`` from ``float32_radius``; ``na``/``nb`` the strip's margins)."""
+    thr = r32 * (na[:, None] + nb[None, :]) if relative else r32
+    return D < thr
+
+
+def row_major(rows: torch.Tensor, cols: torch.Tensor, width: int):
+    """Hit coordinates in the order ``nonzero`` gives on one dense
+    (., width) matrix."""
+    order = torch.argsort(rows * width + cols)
+    return rows[order], cols[order]
